@@ -1,12 +1,11 @@
 """Time-to-k-eigenpairs vs block size b (BASELINE.md north-star row 3;
 the reference's sweep is b ∈ {1,2,4,8} at k=100, benchmark.jl:29-36).
 
-512² Laplacian, k=50, tol 1e-3, bf16 basis (the headline config), warm
-best-of-2 per block size with distinct seeds (backend result-cache
-defeat).  Wider blocks use more MXU lanes per reorth contraction
-(round-5 lane census: dots are free to 32 lanes) but do more total
-work per converged pair — this sweep records where the trade lands at
-the solver level.  Prints one JSON line per b.
+512² Laplacian, k=50, tol 1e-3, bf16 basis (the headline config), one
+compile run and one timed run per block size.  Wider blocks make wider
+reorth contractions but do more total work per converged pair — this
+sweep records where the trade lands at the solver level.  Prints one
+JSON line per b.
 """
 
 import json
@@ -16,20 +15,17 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault(
-    "RBL_AOT_CACHE",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".aot_cache"),
-)
-
-
 def main():
     import numpy as np
 
+    import jax
     import jax.numpy as jnp
 
-    import rbl_tpu as rt
-    from rbl_tpu.config import RBLConfig
+    import rbl as rt
+    from rbl.backend import device_summary, enable_compile_cache
+    from rbl.config import RBLConfig
+
+    enable_compile_cache()
 
     nx = 512
     k = 50
@@ -43,20 +39,16 @@ def main():
             compute_dtype=jnp.float32, qr_method="cholqr2", tol=1e-3,
             max_kryl_dim=768 + (-768) % b, eig_poll_cadence=16, seed=0,
         )
-        times, res = [], None
-        for seed in (0, 1, 2):
+        for leg in ("compile", "timed"):
             t0 = time.perf_counter()
-            r = rt.rbl(op, k, b, cfg=cfg.replace(seed=seed),
-                       compute_eigenvectors=True)
-            float(r.eigenvectors[0, 0])
+            res = rt.rbl(op, k, b, cfg=cfg, compute_eigenvectors=True)
+            jax.block_until_ready(res.eigenvectors)
             dt = time.perf_counter() - t0
-            if seed:  # seed 0 warms compiles/AOT for this b
-                times.append(dt)
-                res = r
         w = np.sort(np.asarray(res.eigenvalues))[::-1]
         print(json.dumps({
             "metric": f"lap2d_512_k50_b{b}",
-            "warm_s": round(min(times), 3),
+            "device": device_summary(),
+            "warm_s": dt,
             "kryl_dim": int(res.kryl_dim),
             "max_rel_err": float(np.max(np.abs(w - lam) / lam)),
             "converged": bool(res.converged),

@@ -4,7 +4,7 @@
 # NOTE: the build/CI environment for this repo has ZERO network egress, so
 # this script cannot run there — it is committed for machines that do have
 # network access.  In the egress-less environment the benchmark-class
-# matrix is assembled instead (rbl_tpu/utils/fem.py: a real 3-D
+# matrix is assembled instead (rbl/utils/fem.py: a real 3-D
 # linear-elasticity stiffness matrix in the same ldoor/hood family), via
 # `python examples/benchmark.py --fem3d 42 ...`.
 set -euo pipefail

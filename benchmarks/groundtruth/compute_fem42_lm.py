@@ -1,14 +1,15 @@
 """One-time ground-truth spectrum for the fem3d-42 benchmark matrix
-(VERDICT r2 next-item 4): scipy/ARPACK eigsh(k=100, which="LM", tol=1e-7)
+scipy/ARPACK eigsh(k=100, which="LM", tol=1e-7)
 on the assembled elasticity stiffness — the reference's own cross-check
 config (Julia/benchmark.jl:42).  Result is cached as .npz next to this
-script; the TPU benchmark rows assert against it."""
+script; chip_smoke.py's phase C asserts against it."""
+import os
 import time
 
 import numpy as np
 import scipy.sparse.linalg as sla
 
-from rbl_tpu.utils.fem import fem_elasticity_3d
+from rbl.utils.fem import fem_elasticity_3d
 
 t0 = time.time()
 A = fem_elasticity_3d(42)
@@ -20,7 +21,8 @@ w = sla.eigsh(A, k=100, which="LM", tol=1e-7, maxiter=50000,
 el = time.time() - t0
 print(f"eigsh done in {el:.0f}s", flush=True)
 np.savez_compressed(
-    "/root/repo/benchmarks/groundtruth/fem42_lm_k100.npz",
+    os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                 "fem42_lm_k100.npz"),
     eigenvalues=np.sort(w)[::-1], tol=1e-7, method="scipy.eigsh ARPACK",
     wall_seconds=el,
 )

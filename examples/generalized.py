@@ -2,7 +2,7 @@
 
 Beyond the reference (standard-form only; SURVEY.md scope note): two
 classic structural pencils solved with the factorization-free transforms
-of rbl_tpu.solver.generalized, cross-checked against dense LAPACK.
+of rbl.solver.generalized, cross-checked against dense LAPACK.
 
 1. Vibration modes: K·x = λ·M·x for a 1-D bar (stiffness K, consistent
    mass M — both tridiagonal).  Continuum eigenvalues are (kπ)²; we
@@ -40,7 +40,7 @@ def main():
     ap.add_argument("--k", type=int, default=6)
     args = ap.parse_args()
 
-    import rbl_tpu as rt
+    import rbl as rt
 
     n, k = args.n, args.k
     K, M = fem_bar(n)
@@ -102,7 +102,7 @@ def main():
     # inner MINRES from hundreds of iterations (scalar Jacobi) to ~25.
     import jax.numpy as jnp
 
-    from rbl_tpu.utils.fem import fem_elasticity_3d
+    from rbl.utils.fem import fem_elasticity_3d
 
     N = 8
     A3 = fem_elasticity_3d(N)

@@ -49,7 +49,7 @@ def main():
                         "a .npy path saves the RBL reconstruction array "
                         "instead)")
     p.add_argument("--f32", action="store_true",
-                   help="f32 compute (fast on the MXU, but this Gram "
+                   help="f32 compute (fast on the GPU, but this Gram "
                         "matrix squares the dominance: σ₁²/σ_sea² ≈ 1e5 "
                         "exceeds what f32's eps can resolve — expect "
                         "degraded σ beyond the structural rank; the "
@@ -62,7 +62,7 @@ def main():
 
     import jax.numpy as jnp
 
-    import rbl_tpu as rt
+    import rbl as rt
 
     # 1. rbl_svd — RBL on the matrix-free Gram operator (images.jl:21-25,
     # lifted into the solver API: small-side selection, σ≈0 guarding); f64

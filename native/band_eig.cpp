@@ -1,9 +1,9 @@
 // Symmetric banded eigensolver — native C++ replacement for the reference's
-// raw LAPACK ccall (dsbev_64_, /root/reference Julia/common.jl:28-48).
+// raw LAPACK ccall (dsbev_64_, Julia/common.jl:28-48).
 //
 // The reference reaches its only native code through one ccall into the
 // Fortran LAPACK shipped with Julia; this is the equivalent first-class
-// native component for the TPU framework's host-side Rayleigh–Ritz solve.
+// native component for the solver's host-side Rayleigh–Ritz solve.
 // T is small (m ≤ ~1400), so an O(m^3) dense path is acceptable:
 //   1. expand LAPACK lower-band storage to dense symmetric,
 //   2. Householder tridiagonalization with accumulated transform (the

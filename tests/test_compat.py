@@ -1,4 +1,4 @@
-"""scipy.sparse.linalg-compat surface (rbl_tpu/compat.py): the migration
+"""scipy.sparse.linalg-compat surface (rbl/compat.py): the migration
 path for reference users — benchmark.jl:42 validates against ARPACK `eigs`
 and images.jl:37-42 against `svds` through exactly these signatures."""
 
@@ -7,7 +7,7 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as sla
 
-import rbl_tpu as rt
+import rbl as rt
 
 
 def _sym_sparse(n=300, seed=0):

@@ -1,5 +1,5 @@
-"""Row-sharded multi-device tests on the 8-virtual-CPU mesh — the TPU
-analogue of multi-node testing (SURVEY §4: the reference has no distributed
+"""Row-sharded multi-device tests on the 8-virtual-CPU mesh — the stand-in
+for multi-GPU testing (SURVEY §4: the reference has no distributed
 tests because nothing distributed exists)."""
 
 import numpy as np
@@ -8,10 +8,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import rbl_tpu as rt
-from rbl_tpu.config import RBLConfig
-from rbl_tpu.parallel.dist_spmm import ShardedEllSpMM, ShardedLaplacian2D
-from rbl_tpu.parallel.mesh import make_row_mesh, shard_rows
+import rbl as rt
+from rbl.config import RBLConfig
+from rbl.parallel.dist_spmm import ShardedEllSpMM, ShardedLaplacian2D
+from rbl.parallel.mesh import make_row_mesh, shard_rows
 
 
 def test_sharded_laplacian_matches_single_device(eight_devices):
@@ -71,7 +71,7 @@ def test_sharded_coo_spmm_matches_scipy(eight_devices):
     the all-gather + sorted segment_sum."""
     import scipy.sparse as sp
 
-    from rbl_tpu.parallel.dist_spmm import ShardedCooSpMM
+    from rbl.parallel.dist_spmm import ShardedCooSpMM
 
     mesh = make_row_mesh(8)
     n, b = 512, 4
@@ -92,8 +92,8 @@ def test_sharded_coo_bf16_accumulates_in_f32(eight_devices):
     of entries, raw bf16 accumulation loses ~2^-8 relative per row."""
     import scipy.sparse as sp
 
-    from rbl_tpu.ops.spmm.coo import CooOperator
-    from rbl_tpu.parallel.dist_spmm import ShardedCooSpMM
+    from rbl.ops.spmm.coo import CooOperator
+    from rbl.parallel.dist_spmm import ShardedCooSpMM
 
     mesh = make_row_mesh(8)
     n, b = 512, 4
@@ -119,7 +119,7 @@ def test_sharded_coo_solve_end_to_end(eight_devices):
     """Sharded-COO operator through the full solver vs dense eigh."""
     import scipy.sparse as sp
 
-    from rbl_tpu.parallel.dist_spmm import ShardedCooSpMM
+    from rbl.parallel.dist_spmm import ShardedCooSpMM
 
     mesh = make_row_mesh(8)
     n, k, b = 256, 5, 4
@@ -138,8 +138,8 @@ def test_sharded_sparse_svd_matches_unsharded(eight_devices):
     row-banded across devices; result must match the single-device solve."""
     import scipy.sparse as sp
 
-    import rbl_tpu as rt
-    from rbl_tpu.parallel.mesh import make_row_mesh
+    import rbl as rt
+    from rbl.parallel.mesh import make_row_mesh
 
     rng = np.random.default_rng(21)
     B = sp.random(320, 128, density=0.06, random_state=rng).tocsr()
@@ -164,7 +164,7 @@ def test_sharded_diagonals(eight_devices):
     shift-invert solves (ops/minres.py jacobi_psolve)."""
     import scipy.sparse as sp
 
-    from rbl_tpu.parallel.dist_spmm import ShardedCooSpMM
+    from rbl.parallel.dist_spmm import ShardedCooSpMM
 
     mesh = make_row_mesh(8)
     n = 512
@@ -188,8 +188,8 @@ def test_sharded_bsr_matches_single_device(eight_devices):
     several shifts)."""
     import scipy.sparse as sp
 
-    from rbl_tpu.ops.spmm.pallas_bsr import BlockSparseOperator
-    from rbl_tpu.parallel.dist_spmm import ShardedBlockSparseOperator
+    from rbl.ops.spmm.pallas_bsr import BlockSparseOperator
+    from rbl.parallel.dist_spmm import ShardedBlockSparseOperator
 
     mesh = make_row_mesh(8)
     n, b, t = 512, 4, 16  # 16x16 tiles: 32 block rows, 4 per device
@@ -234,7 +234,7 @@ def test_sharded_bsr_solve_end_to_end(eight_devices):
     """Full eigensolve through the sharded BSR operator vs dense eigh."""
     import scipy.sparse as sp
 
-    from rbl_tpu.parallel.dist_spmm import ShardedBlockSparseOperator
+    from rbl.parallel.dist_spmm import ShardedBlockSparseOperator
 
     mesh = make_row_mesh(8)
     n, k, b, t = 512, 5, 4, 16
@@ -263,8 +263,8 @@ def test_sharded_generalized_pencil(eight_devices):
     import scipy.linalg
     import scipy.sparse as sp
 
-    from rbl_tpu.parallel.dist_spmm import ShardedCooSpMM
-    from rbl_tpu.solver.generalized import rbl_generalized
+    from rbl.parallel.dist_spmm import ShardedCooSpMM
+    from rbl.solver.generalized import rbl_generalized
 
     mesh = make_row_mesh(8)
     n = 256
@@ -291,7 +291,7 @@ def test_row_ghost_exchange_matches_scipy(eight_devices):
     exercises ghosts on far shifts."""
     import scipy.sparse as sp
 
-    from rbl_tpu.parallel.dist_spmm import ShardedCooSpMM, ShardedEllSpMM
+    from rbl.parallel.dist_spmm import ShardedCooSpMM, ShardedEllSpMM
 
     mesh = make_row_mesh(8)
     n, b = 512, 4  # ml = 64
@@ -334,7 +334,7 @@ def test_row_ghost_fallback_on_dense_coupling(eight_devices):
     exchange='ghost' forces the boundary path and must agree."""
     import scipy.sparse as sp
 
-    from rbl_tpu.parallel.dist_spmm import ShardedCooSpMM, ShardedEllSpMM
+    from rbl.parallel.dist_spmm import ShardedCooSpMM, ShardedEllSpMM
 
     mesh = make_row_mesh(8)
     n, b = 512, 4
@@ -360,7 +360,7 @@ def test_row_ghost_solve_end_to_end(eight_devices):
     operator, boundary-only exchange) vs dense eigh."""
     import scipy.sparse as sp
 
-    from rbl_tpu.parallel.dist_spmm import ShardedCooSpMM
+    from rbl.parallel.dist_spmm import ShardedCooSpMM
 
     mesh = make_row_mesh(8)
     n, k, b = 512, 5, 4

@@ -1,4 +1,4 @@
-"""3D elasticity FEM assembly (rbl_tpu/utils/fem.py) — the in-repo
+"""3D elasticity FEM assembly (rbl/utils/fem.py) — the in-repo
 stand-in for the reference's SuiteSparse structural matrices
 (reference Julia/benchmark.jl:21-28; no network egress here)."""
 
@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import scipy.sparse.linalg as spla
 
-from rbl_tpu.utils.fem import fem_elasticity_3d, hex8_stiffness
+from rbl.utils.fem import fem_elasticity_3d, hex8_stiffness
 
 
 def test_element_stiffness_rigid_body_null_space():
@@ -55,7 +55,7 @@ def test_block_structure_is_bsr_friendly():
 
 def test_rbl_matches_arpack_on_fem_matrix():
     A = fem_elasticity_3d(6)  # n = 1008, genuinely 3D elasticity spectrum
-    import rbl_tpu as rt
+    import rbl as rt
 
     res = rt.rbl(rt.as_operator(A), 8, 4)
     d = spla.eigsh(A, k=8, which="LM", return_eigenvectors=False)[::-1]
@@ -66,7 +66,7 @@ def test_random_permutation_preserves_solution():
     """Worst-case irregular ordering (examples/benchmark.py --permute):
     eigenvalues are permutation-invariant and every routed format must
     agree with the native-ordering solve."""
-    import rbl_tpu as rt
+    import rbl as rt
 
     A = fem_elasticity_3d(5)
     n = A.shape[0]

@@ -4,7 +4,7 @@ Beyond-parity accelerator: on slowly-decaying spectra the filter collapses
 the Krylov dimension (the dominant reorth-traffic driver) by an order of
 magnitude at the cost of `degree` extra SpMMs per iteration.  The
 Krylov-dim reduction asserted here is hardware-independent — it is the
-quantity the TPU wall-clock win follows from.
+quantity the GPU wall-clock win follows from.
 """
 
 import numpy as np
@@ -13,10 +13,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import rbl_tpu as rt
-from rbl_tpu.ops.chebyshev import ChebyshevFilterOperator
-from rbl_tpu.solver import filtered as filtered_mod
-from rbl_tpu.solver.filtered import rbl_filtered
+import rbl as rt
+from rbl.ops.chebyshev import ChebyshevFilterOperator
+from rbl.solver import filtered as filtered_mod
+from rbl.solver.filtered import rbl_filtered
 
 
 def _lap_top(nx, k):

@@ -18,8 +18,8 @@ delivers ~1e-12; what MUST never happen is a wrong or ghost eigenvalue).
 import numpy as np
 import pytest
 
-import rbl_tpu as rt
-from rbl_tpu.config import RBLConfig
+import rbl as rt
+from rbl.config import RBLConfig
 
 
 def _check(diag, k=5, b=5, tol_rel=1e-10, **cfg_kw):
@@ -84,7 +84,7 @@ def test_fuzz_spectrum_with_host_offload(shape):
 def test_fuzz_spectrum_on_mesh(shape, eight_devices):
     """Danger/selective-regime shapes under the 8-device row mesh: policy
     flips, rewinds, and re-randomization interact with sharded state."""
-    from rbl_tpu.parallel.mesh import make_row_mesh
+    from rbl.parallel.mesh import make_row_mesh
 
     rng = np.random.default_rng(3)
     diag = SHAPES[shape](rng, 400)
@@ -177,7 +177,7 @@ def test_f32_large_laplacian_no_false_convergence():
     solve FALSELY converged with eigenvalues 10% wrong while the Lanczos
     bounds read 1e-7 (they assume orthonormality)."""
     import jax.numpy as jnp
-    from rbl_tpu.config import RBLConfig
+    from rbl.config import RBLConfig
 
     nx = ny = 256
     op = rt.Laplacian2D(nx=nx, ny=ny, _dtype=jnp.float32)
@@ -201,7 +201,7 @@ def test_f32_precision_exhaustion_graceful():
     residuals in the result, the dominant pairs still accurate — instead
     of running ‖B‖ off to NaN (the pre-detector behavior)."""
     import jax.numpy as jnp
-    from rbl_tpu.config import RBLConfig
+    from rbl.config import RBLConfig
 
     rng = np.random.default_rng(3)
     diag = np.concatenate(
@@ -226,7 +226,7 @@ def test_fuzz_restarted(shape):
     """The restarted sweep is the main driver run against the lock set —
     these spectra all corrupted the previous standalone fixed-length sweep
     (duplicate basis directions, Ritz values past ‖A‖)."""
-    from rbl_tpu.solver.restarted import rbl_restarted
+    from rbl.solver.restarted import rbl_restarted
 
     diag = np.asarray(RESTARTED_SHAPES[shape], dtype=np.float64)
     order = np.argsort(np.abs(diag))[::-1]
@@ -246,7 +246,7 @@ def test_fuzz_generalized_pencils(seed):
     import scipy.linalg
     import scipy.sparse as sp
 
-    from rbl_tpu.solver.generalized import rbl_generalized
+    from rbl.solver.generalized import rbl_generalized
 
     rng = np.random.default_rng(100 + seed)
     n = 260

@@ -15,14 +15,14 @@ import scipy.sparse as sp
 
 import jax.numpy as jnp
 
-import rbl_tpu as rt
-from rbl_tpu.ops.generalized import (
+import rbl as rt
+from rbl.ops.generalized import (
     ChebyshevSeriesOperator,
     PencilOperator,
     chebyshev_fit,
     fit_to_tolerance,
 )
-from rbl_tpu.solver.generalized import rbl_generalized
+from rbl.solver.generalized import rbl_generalized
 
 
 def _fem1d(n):
@@ -218,7 +218,7 @@ class TestGeneralizedShiftInvert:
     inner solve, Chebyshev M^{±1/2})."""
 
     def test_operator_is_symmetric(self):
-        from rbl_tpu.ops.generalized import GeneralizedShiftInvertOperator
+        from rbl.ops.generalized import GeneralizedShiftInvertOperator
 
         rng = np.random.default_rng(1)
         Ad = rng.standard_normal((30, 30))

@@ -1,17 +1,17 @@
 """Geometric multigrid preconditioner (ops/multigrid.py) + the FDM exact
 shifted solve (ops/fdm.py) — NEXT.md item 1.  The contraction factors and
 inner-iteration counts asserted here are hardware-independent; they are
-the quantity the TPU shift-invert wall-clock follows from."""
+the quantity the GPU shift-invert wall-clock follows from."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-import rbl_tpu as rt
-from rbl_tpu.ops.fdm import fdm_solver_for
-from rbl_tpu.ops.minres import ShiftInvertOperator, block_minres
-from rbl_tpu.ops.multigrid import (
+import rbl as rt
+from rbl.ops.fdm import fdm_solver_for
+from rbl.ops.minres import ShiftInvertOperator, block_minres
+from rbl.ops.multigrid import (
     MultigridCycle2D,
     SeparableMultigrid,
     mg_psolve_for,
@@ -127,7 +127,7 @@ def test_eigsh_sm_with_auto_matches_analytic():
 def test_eigsh_sm_with_mg_matches_analytic():
     """The V-cycle tier stays correct end-to-end (opt-in via
     precond='mg' now that 'auto' resolves to the exact FDM solve)."""
-    from rbl_tpu.ops.minres import default_inner_tol
+    from rbl.ops.minres import default_inner_tol
 
     op = rt.Laplacian2D(nx=32, ny=32, _dtype=jnp.float64)
     si = ShiftInvertOperator.shift(

@@ -13,7 +13,7 @@ import scipy.io
 import scipy.linalg
 import scipy.sparse as sp
 
-from rbl_tpu import native
+from rbl import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library unavailable"
@@ -34,7 +34,7 @@ def test_band_eigh_matches_scipy(m, b):
     w, V = native.band_eigh(band)
     w_ref = scipy.linalg.eigvals_banded(band, lower=True)
     np.testing.assert_allclose(w, w_ref, atol=1e-11 * max(abs(w_ref).max(), 1))
-    from rbl_tpu.ops.band import band_to_dense
+    from rbl.ops.band import band_to_dense
 
     Td = band_to_dense(band)
     assert np.abs(Td @ V - V * w[None, :]).max() < 1e-11 * max(abs(w).max(), 1)
@@ -54,7 +54,7 @@ def test_band_eigh_clustered_spectrum():
 
 def test_solver_with_native_eig_backend():
     """End-to-end RBL solve using the native eigensolver backend."""
-    import rbl_tpu as rt
+    import rbl as rt
 
     n = 500
     d = np.arange(1.0, n + 1.0)
@@ -99,7 +99,7 @@ def test_mm_parser_pattern():
 def test_mm_parser_via_load_matrix():
     """utils.load_matrix routes .mtx through the native parser and
     symmetrizes."""
-    from rbl_tpu.utils.suitesparse import load_matrix
+    from rbl.utils.suitesparse import load_matrix
 
     rng = np.random.default_rng(4)
     A = sp.random(40, 40, density=0.1, random_state=rng)

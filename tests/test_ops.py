@@ -7,16 +7,16 @@ import pytest
 
 import jax.numpy as jnp
 
-import rbl_tpu as rt
-from rbl_tpu.ops.band import BlockTridiagonalT, band_to_dense
-from rbl_tpu.ops.eig import (
+import rbl as rt
+from rbl.ops.band import BlockTridiagonalT, band_to_dense
+from rbl.ops.eig import (
     check_convergence,
     eig_banded_host,
     ritz_residual_bounds,
     sort_eig_abs,
 )
-from rbl_tpu.ops.qr import block_qr
-from rbl_tpu.ops.reorth import local_reorth, partial_reorth, project_out
+from rbl.ops.qr import block_qr
+from rbl.ops.reorth import local_reorth, partial_reorth, project_out
 
 
 @pytest.mark.parametrize("method", ["householder", "cholqr2", "cholqr3"])
@@ -178,7 +178,7 @@ def test_eig_banded_topk_matches_full():
     """The selective top-k path (eigvals + index-range inverse iteration)
     must reproduce sort_eig_abs over the full dsbevd factorization,
     including indefinite spectra where the top-k straddles both ends."""
-    from rbl_tpu.ops.eig import eig_banded_topk
+    from rbl.ops.eig import eig_banded_topk
 
     rng = np.random.default_rng(11)
     b, m = 3, 60
@@ -205,7 +205,7 @@ def test_eig_banded_topk_dense_matches_full():
     sort_eig_abs over the full dsbevd factorization, including indefinite
     spectra where the top-k straddles both ends, and must fall back to the
     full solve at large k/m."""
-    from rbl_tpu.ops.eig import eig_banded_topk_dense
+    from rbl.ops.eig import eig_banded_topk_dense
 
     rng = np.random.default_rng(12)
     b, m = 3, 60
@@ -229,7 +229,7 @@ def test_basis_store_host_offload_solve():
     pinned-host offload + hybrid reorth + two-tier recovery; eigenpairs
     must match the all-device solve (reference hybrid_part_reorth!
     semantics, RBL_gpu.jl:59-81)."""
-    import rbl_tpu as rt
+    import rbl as rt
 
     n, k, b = 600, 5, 4
     d = np.linspace(1.0, 80.0, n) ** 2
@@ -255,7 +255,7 @@ def test_host_offload_dominant_spectrum_orthogonality():
     eigenvalues: 26.2 reported where 85 belongs)."""
     import scipy.sparse as sp
 
-    import rbl_tpu as rt
+    import rbl as rt
 
     n, k, b = 300, 6, 4
     d = np.linspace(1.0, 50.0, n)
@@ -287,11 +287,11 @@ def test_host_offload_T_consistency():
     ~1e-7 at the cap under that scheme; this gate is 1e-10)."""
     import jax
 
-    import rbl_tpu as rt
-    from rbl_tpu.ops.band import band_to_dense
-    from rbl_tpu.ops.spmm.operator import as_operator
-    from rbl_tpu.solver.basis import BasisStore
-    from rbl_tpu.solver.lanczos import lanczos_iteration, random_start_block
+    import rbl as rt
+    from rbl.ops.band import band_to_dense
+    from rbl.ops.spmm.operator import as_operator
+    from rbl.solver.basis import BasisStore
+    from rbl.solver.lanczos import lanczos_iteration, random_start_block
 
     n, k, b, cap = 500, 6, 4, 48
     d = np.linspace(1.0, 50.0, n)
@@ -322,7 +322,7 @@ def test_k_beyond_krylov_cap_raises():
     solver must raise instead of silently returning fewer eigenpairs."""
     import pytest
 
-    import rbl_tpu as rt
+    import rbl as rt
 
     d = np.arange(1.0, 101.0)
     with pytest.raises(ValueError):
@@ -333,7 +333,7 @@ def test_iterations_matches_kryl_dim_on_early_convergence():
     """Early convergence via a prefix poll rewinds the basis; the reported
     iteration count must match the final basis (iterations·b == kryl_dim ==
     V rows), not the speculated chunk's counter."""
-    import rbl_tpu as rt
+    import rbl as rt
 
     n, k, b = 400, 4, 4
     d = np.zeros(n)
@@ -349,10 +349,10 @@ def test_adaptive_reorth_semiorthogonality():
     reorthogonalization contract that keeps T's Ritz values honest."""
     import jax
 
-    import rbl_tpu as rt
-    from rbl_tpu.ops.spmm.operator import as_operator
-    from rbl_tpu.solver.basis import BasisStore
-    from rbl_tpu.solver.lanczos import lanczos_iteration, random_start_block
+    import rbl as rt
+    from rbl.ops.spmm.operator import as_operator
+    from rbl.solver.basis import BasisStore
+    from rbl.solver.lanczos import lanczos_iteration, random_start_block
 
     n, k, b = 500, 6, 4
     d = np.linspace(1.0, 50.0, n)
@@ -377,7 +377,7 @@ def test_breakdown_rerandomization_low_rank():
     Krylov space after two b=3 blocks; the solver must detect the collapsed
     B, re-randomize (reference has no handling — SURVEY §5), and still
     return the top-k eigenpairs without ghosts or NaNs."""
-    import rbl_tpu as rt
+    import rbl as rt
 
     n = 300
     d = np.zeros(n)
@@ -391,7 +391,7 @@ def test_breakdown_rerandomization_low_rank():
 def test_eig_backend_device_solve():
     """eig_backend='device' routes the Rayleigh–Ritz solve through
     jnp.linalg.eigh of the densified T."""
-    import rbl_tpu as rt
+    import rbl as rt
 
     n = 400
     d = np.arange(1.0, n + 1.0)
@@ -405,7 +405,7 @@ def test_basis_store_small_cap_rejected_or_safe():
     import pytest as _pytest
 
     import jax.numpy as jnp
-    from rbl_tpu.solver.basis import BasisStore
+    from rbl.solver.basis import BasisStore
 
     store = BasisStore(64, 4, max_cols=64, dtype=jnp.float64,
                        device_cap_cols=16)
@@ -418,7 +418,7 @@ def test_basis_store_small_cap_rejected_or_safe():
 def test_basis_store_offload_exact_contents():
     """Every stored block must be recoverable bit-for-bit across tiers."""
     import jax.numpy as jnp
-    from rbl_tpu.solver.basis import BasisStore
+    from rbl.solver.basis import BasisStore
 
     rng = np.random.default_rng(0)
     n, b, cap = 32, 4, 16
@@ -439,8 +439,8 @@ def test_basis_store_rewind_across_tiers():
     """Tier-aware rewind: a rewind target inside (or before) offloaded
     panels must drop/trim panels and leave exactly the prefix readable."""
     import jax.numpy as jnp
-    from rbl_tpu.solver.basis import BasisStore
-    from rbl_tpu.solver.lanczos import _zero_cols_range
+    from rbl.solver.basis import BasisStore
+    from rbl.solver.lanczos import _zero_cols_range
 
     rng = np.random.default_rng(1)
     n, b, cap = 24, 4, 16
@@ -478,9 +478,9 @@ def test_fresh_directions_deflates_lock_and_host_tier():
     duplicates of already-locked eigenvalues."""
     import jax
 
-    import rbl_tpu as rt
-    from rbl_tpu.solver.basis import BasisStore
-    from rbl_tpu.solver.lanczos import _fresh_directions
+    import rbl as rt
+    from rbl.solver.basis import BasisStore
+    from rbl.solver.lanczos import _fresh_directions
 
     n, b, cap = 400, 4, 16
     rng = np.random.default_rng(0)
@@ -504,7 +504,7 @@ def test_breakdown_with_host_offload_active():
     """Breakdown AFTER the basis spilled to the host tier: the replacement
     block must come out orthogonal to the offloaded panels too, or the
     solve returns ghost duplicates."""
-    import rbl_tpu as rt
+    import rbl as rt
 
     n = 500
     nval = 40
@@ -529,7 +529,7 @@ def test_partial_breakdown_midsweep_repair():
     ‖B‖ stays O(‖A‖) — the partial-repair path (σ_min scan) must catch it
     and the solve must return exact eigenvalues (RBL_DEBUG shows
     'partial breakdown at i=2: rank 3/4')."""
-    import rbl_tpu as rt
+    import rbl as rt
 
     n = 300
     d = np.zeros(n)
@@ -545,8 +545,8 @@ def test_repair_block_rank_zero():
     coupling — fresh orthonormal block, orthogonal to the stored state."""
     import jax
 
-    from rbl_tpu.solver.basis import BasisStore
-    from rbl_tpu.solver.lanczos import _repair_block
+    from rbl.solver.basis import BasisStore
+    from rbl.solver.lanczos import _repair_block
 
     n, b = 200, 4
     rng = np.random.default_rng(0)
@@ -574,7 +574,7 @@ def test_as_operator_bcoo_bcsr():
     import scipy.sparse as sp
     from jax.experimental import sparse as jsparse
 
-    import rbl_tpu as rt
+    import rbl as rt
 
     rng = np.random.default_rng(0)
     A = sp.random(150, 150, density=0.05, random_state=rng)
@@ -599,7 +599,7 @@ def test_function_operator_end_to_end():
     import jax.numpy as jnp
     import numpy as np
 
-    import rbl_tpu as rt
+    import rbl as rt
 
     d = jnp.asarray(np.arange(1.0, 501.0))
     op = rt.FunctionOperator(
@@ -611,45 +611,13 @@ def test_function_operator_end_to_end():
     )
 
 
-def test_gram_f64_scan_branch_matches_einsum(monkeypatch):
-    """The TPU-f64 sequential-scan gram (X64Split OOM workaround) must
-    match the pairwise-einsum path to f64 roundoff."""
-    import rbl_tpu.ops.contract as ct
-
-    rng = np.random.default_rng(11)
-    X = jnp.asarray(rng.standard_normal((50_000, 7)))
-    Y = jnp.asarray(rng.standard_normal((50_000, 5)))
-    ref = np.asarray(ct.gram(X, Y))
-    monkeypatch.setattr(ct, "_on_tpu", lambda: True)
-    monkeypatch.setattr(ct, "_X64_SPLIT_BUDGET_BYTES", 0)
-    G = np.asarray(ct.gram(X, Y))
-    assert np.abs(G - ref).max() / np.abs(ref).max() < 1e-14
-
-
-def test_project_out_chunked_f64_branch_matches(monkeypatch):
-    """TPU-f64 row-chunked projection (X64Split OOM workaround) is
-    mathematically identical to the flat dot."""
-    import rbl_tpu.ops.contract as ct
-    import rbl_tpu.ops.reorth as ro
-
-    rng = np.random.default_rng(13)
-    B = jnp.asarray(np.linalg.qr(rng.standard_normal((20_000, 37)))[0])
-    W = jnp.asarray(rng.standard_normal((20_000, 6)))
-    ref = np.asarray(ro.project_out(B, W))
-    monkeypatch.setattr(ct, "_on_tpu", lambda: True)
-    monkeypatch.setattr(ct, "_X64_SPLIT_BUDGET_BYTES", 0)
-    monkeypatch.setattr(ro, "_X64_SPLIT_BUDGET_BYTES", 0)
-    out = np.asarray(ro.project_out(B, W))
-    assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-13
-
-
 def test_as_operator_casts_linear_operator_dtype():
     """An explicit dtype request must cast an existing LinearOperator
     (a mismatched mass-matrix dtype poisoned while_loop carries in the
     f32 generalized path)."""
     import jax.numpy as jnp
 
-    from rbl_tpu.ops.spmm.operator import as_operator
+    from rbl.ops.spmm.operator import as_operator
 
     d64 = rt.DiagonalOperator(jnp.asarray(np.arange(1.0, 11.0)))
     assert jnp.dtype(d64.dtype) == jnp.float64
@@ -666,7 +634,7 @@ def test_poll_schedule_geometric_then_fine_then_forced():
     sweep trace must reproduce the exact poll panel sequence — geometric
     ~m/4 backoff far from convergence, base-cadence pinning after the
     fine-poll flip, and the forced final poll at the cap."""
-    from rbl_tpu.solver.lanczos import (
+    from rbl.solver.lanczos import (
         fine_poll_reset_cols,
         poll_panel_for,
         poll_stride_cols,
@@ -708,7 +676,7 @@ def test_poll_schedule_geometric_then_fine_then_forced():
 
 
 def test_poll_schedule_fine_reset_pulls_back():
-    from rbl_tpu.solver.lanczos import fine_poll_reset_cols
+    from rbl.solver.lanczos import fine_poll_reset_cols
 
     # geometric stride had scheduled 890 cols; the flip at panel 89 pulls
     # the next poll back to 89·8 + 16·8 = 840

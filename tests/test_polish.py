@@ -1,18 +1,17 @@
 """Warm-started f32→f64 polish pipeline (solver/polish.py).
 
 The reference's mixed-precision story is a FLOAT reorth tier inside one
-DOUBLE sweep (common.jl:5-6, README.md:69); on TPU the winning split is
-f32 for the whole subspace discovery and f64 only for a short restarted
-polish (BENCHMARKS.md "At the reference's own tolerance").  No reference
+DOUBLE sweep (common.jl:5-6, README.md:69); here the split is f32 for the
+whole subspace discovery and f64 only for a short filtered polish.  No reference
 test coverage exists for any of this (SURVEY §4)."""
 
 import numpy as np
 
 import jax.numpy as jnp
 
-import rbl_tpu as rt
-from rbl_tpu.config import RBLConfig
-from rbl_tpu.solver.polish import rbl_polished
+import rbl as rt
+from rbl.config import RBLConfig
+from rbl.solver.polish import rbl_polished
 
 
 def _lap2d_exact(nx, k):
@@ -23,7 +22,7 @@ def _lap2d_exact(nx, k):
 def test_polished_clustered_laplacian_at_ref_tol():
     """The target workload: clustered Laplacian top-k at the reference's
     absolute 1e-7 residual bound (RBL.jl:109) — unreachable by one sweep
-    (cap-hits, BENCHMARKS.md), reachable by the warm-started polish."""
+    (cap-hits), reachable by the warm-started polish."""
     nx, k, b = 48, 10, 4
     op = rt.Laplacian2D(nx=nx, ny=nx, _dtype=jnp.float64)
     cfg = RBLConfig(block_size=b, tol=1e-7, seed=0)
@@ -42,7 +41,7 @@ def test_polished_dense_cluster_at_ref_tol_k50():
     """The round-3 failure mode, CPU-reproducible (VERDICT r3 item 1): a
     top cluster with ~2e-5 RELATIVE gaps (the 256² Laplacian's geometry,
     incl. exact degeneracies) defeats short restarted Krylov sweeps — the
-    recorded TPU run locked 0/50 in 22 restarts.  The Chebyshev subspace
+    recorded restarted run locked 0/50 in 22 restarts.  The Chebyshev subspace
     polish must lock all 50 at the reference's absolute 1e-7 bound."""
     n, k, b = 5000, 50, 8
     d = np.zeros(n)
@@ -81,7 +80,7 @@ def test_polished_psd_bounds_hint_and_degree_cap():
 def test_chebyshev_refine_mixed_sign_lm():
     """LM on a mixed-sign spectrum: wanted pairs at BOTH ends, symmetric
     damped interval [−θ̃, θ̃] (no λ_min certification possible)."""
-    from rbl_tpu.solver.polish import chebyshev_refine
+    from rbl.solver.polish import chebyshev_refine
 
     n, k = 800, 6
     rng = np.random.default_rng(3)
@@ -103,7 +102,7 @@ def test_chebyshev_refine_mixed_sign_lm():
 
 def test_chebyshev_refine_sa_mode():
     """SA: smallest-algebraic polish (solved as LA of −A)."""
-    from rbl_tpu.solver.polish import chebyshev_refine
+    from rbl.solver.polish import chebyshev_refine
 
     n, k = 600, 5
     rng = np.random.default_rng(5)
@@ -149,10 +148,9 @@ def test_warm_seeding_converges_with_short_sweeps():
 
 
 def test_polished_cold_fallback_on_nonfinite_warm(monkeypatch):
-    """Post-crash-worker garbage in the coarse stage (BENCHMARKS.md
-    environment finding) must not poison the polish: non-finite warm_V
+    """Non-finite garbage in the coarse stage must not poison the polish: non-finite warm_V
     is dropped and the restarted solve runs cold."""
-    import rbl_tpu.solver.polish as pol
+    import rbl.solver.polish as pol
 
     n, k = 300, 4
     a = np.cumsum(np.arange(1.0, n + 1.0))
@@ -177,8 +175,8 @@ def test_polished_sharded_mesh(eight_devices):
     cfg.mesh (SURVEY §2c sharded-basis strategy)."""
     import jax.numpy as jnp
 
-    from rbl_tpu.parallel.dist_spmm import ShardedLaplacian2D
-    from rbl_tpu.parallel.mesh import make_row_mesh
+    from rbl.parallel.dist_spmm import ShardedLaplacian2D
+    from rbl.parallel.mesh import make_row_mesh
 
     mesh = make_row_mesh(8)
     nx, k, b = 24, 4, 2
@@ -191,8 +189,8 @@ def test_polished_sharded_mesh(eight_devices):
 
 
 def test_warm_block_pads_missing_columns():
-    from rbl_tpu.config import RBLConfig as C
-    from rbl_tpu.solver.restarted import _warm_block
+    from rbl.config import RBLConfig as C
+    from rbl.solver.restarted import _warm_block
 
     n, b = 50, 3
     warm = np.zeros((n, 4))
@@ -206,10 +204,9 @@ def test_warm_block_pads_missing_columns():
 
 
 def test_host_rr_mode_matches_device_path(monkeypatch):
-    """The accelerator-f64 host-RR branch (host Gram/QR, device
-    apply/filter/rotate — BENCHMARKS.md round-4 numerics census) must
-    produce the same answer as the CPU device path.  Forced on via
-    RBL_POLISH_HOST_RR since the CPU backend would never take it."""
+    """The opt-in host-RR branch (host Gram/QR, device
+    apply/filter/rotate) must produce the same answer as the device
+    path.  Forced on via RBL_POLISH_HOST_RR."""
     n, k = 900, 8
     rng = np.random.default_rng(2)
     d = np.zeros(n)
@@ -233,8 +230,8 @@ def test_chebyshev_refine_pass_checkpoint_and_resume(tmp_path):
     """checkpoint_path on the WARM polish path (ADVICE r4): each filter
     pass writes an atomic (X, theta, res, npass) checkpoint; resuming
     from the saved block converges in fewer passes."""
-    from rbl_tpu.solver.polish import chebyshev_refine
-    from rbl_tpu.utils.checkpoint import load_polish_state
+    from rbl.solver.polish import chebyshev_refine
+    from rbl.utils.checkpoint import load_polish_state
 
     n, k = 600, 6
     d = np.linspace(0.01, 9.0, n)
@@ -264,7 +261,7 @@ def test_filter_qr_interleaved_frozen_passthrough():
     """ADVICE r4: frozen columns must emerge (near) bit-stable from the
     fixed-shape QR even when the lock pattern is INTERLEAVED — the
     stable partition puts them ahead of every filtered column."""
-    from rbl_tpu.solver.polish import _filter_qr
+    from rbl.solver.polish import _filter_qr
 
     n, m = 300, 6
     d = np.linspace(0.1, 5.0, n)

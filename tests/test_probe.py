@@ -1,15 +1,15 @@
 """Worker-fault probes + retry wrapper (utils/probe.py).
 
 The reference has no failure-detection subsystem (SURVEY §5); this covers
-the library-level mitigation for the measured post-OOM silent-garbage
-worker state (BENCHMARKS.md round-3 environment finding)."""
+the opt-in library-level retry for a device that returns garbage after a
+fault."""
 
 import numpy as np
 import pytest
 
-import rbl_tpu  # noqa: F401 — enables x64 before probes run
-from rbl_tpu.solver.lanczos import LanczosResult
-from rbl_tpu.utils.probe import (
+import rbl  # noqa: F401 — enables x64 before probes run
+from rbl.solver.lanczos import LanczosResult
+from rbl.utils.probe import (
     backend_healthy,
     solve_with_retry,
     wait_until_healthy,
@@ -76,7 +76,7 @@ def test_exhausted_retries_return_last_result():
 def test_retry_catches_xla_runtime_error():
     # a hard worker crash surfaces as a jax/XLA runtime error, not
     # FloatingPointError — it must get the same health-wait-and-retry
-    from rbl_tpu.utils.probe import _retryable_exceptions
+    from rbl.utils.probe import _retryable_exceptions
 
     excs = _retryable_exceptions()
     assert len(excs) > 1  # FloatingPointError + at least one jax error
@@ -101,9 +101,9 @@ def test_solver_level_fault_retry_rbl(monkeypatch):
     propagates."""
     import jax.numpy as jnp
 
-    import rbl_tpu as rt
-    import rbl_tpu.solver.rbl as rblmod
-    from rbl_tpu.config import RBLConfig
+    import rbl as rt
+    import rbl.solver.rbl as rblmod
+    from rbl.config import RBLConfig
 
     real = rblmod.random_start_block
     calls = {"n": 0}
@@ -131,9 +131,9 @@ def test_solver_level_fault_retry_rbl(monkeypatch):
 def test_solver_level_fault_retry_restarted(monkeypatch):
     import jax.numpy as jnp
 
-    import rbl_tpu as rt
-    import rbl_tpu.solver.restarted as rmod
-    from rbl_tpu.config import RBLConfig
+    import rbl as rt
+    import rbl.solver.restarted as rmod
+    from rbl.config import RBLConfig
 
     real = rmod.random_start_block
     calls = {"n": 0}

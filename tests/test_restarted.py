@@ -8,10 +8,10 @@ import pytest
 
 import jax.numpy as jnp
 
-import rbl_tpu as rt
-from rbl_tpu.config import RBLConfig
-from rbl_tpu.solver.restarted import RBL_restarted, rbl_restarted
-from rbl_tpu.utils.checkpoint import load_restart_state
+import rbl as rt
+from rbl.config import RBLConfig
+from rbl.solver.restarted import RBL_restarted, rbl_restarted
+from rbl.utils.checkpoint import load_restart_state
 
 
 def _moderate(n):
@@ -65,7 +65,7 @@ def test_sa_la_respect_descending_abs_contract():
     """Review regression: after un-shifting, SA/LA results must honor
     LanczosResult's documented descending-|λ| order even with mixed-sign
     spectra (eigenvalues[0] is the dominant pair)."""
-    import rbl_tpu as rt
+    import rbl as rt
 
     d = np.concatenate([np.linspace(-50.0, -45.0, 5),
                         np.linspace(1.0, 40.0, 95)])
@@ -82,7 +82,7 @@ def test_restarted_f32_extreme_dominance_no_ghost_lock():
     leaks re-amplify by |λ|max/sea ≈ 2e6 per iteration and the sweep
     re-converges already-locked directions with lying residual bounds —
     without the overlap gate a duplicate got locked (values off 54%,
-    measured on TPU batch Q).  Locked values must match the true top-k
+    measured on an accelerator run).  Locked values must match the true top-k
     to the f32 floor."""
     import jax.numpy as jnp
 
@@ -109,8 +109,8 @@ def test_restart_growth_policy_stall_pins_sweep_length():
 
     import jax.numpy as jnp
 
-    import rbl_tpu as rt
-    from rbl_tpu.config import RBLConfig
+    import rbl as rt
+    from rbl.config import RBLConfig
 
     n, k, b = 400, 6, 2
     d = np.cumsum(np.arange(1.0, n + 1.0))

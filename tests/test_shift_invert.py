@@ -12,8 +12,8 @@ import scipy.sparse.linalg as sla
 import jax
 import jax.numpy as jnp
 
-import rbl_tpu as rt
-from rbl_tpu.ops.minres import ShiftInvertOperator, block_minres
+import rbl as rt
+from rbl.ops.minres import ShiftInvertOperator, block_minres
 
 
 class TestBlockMinres:
@@ -61,7 +61,7 @@ class TestBlockMinres:
 
 class TestJacobiPrecond:
     def test_preconditioned_matches_and_converges_faster(self):
-        from rbl_tpu.ops.minres import jacobi_psolve
+        from rbl.ops.minres import jacobi_psolve
 
         # wildly scaled diagonal + weak coupling: Jacobi equilibration
         # collapses the iteration count
@@ -91,7 +91,7 @@ class TestJacobiPrecond:
         # good as the unpreconditioned one AND accurate
         import scipy.linalg
 
-        from rbl_tpu.ops.minres import jacobi_psolve
+        from rbl.ops.minres import jacobi_psolve
 
         dA = np.linspace(1.0, 500.0, 500)
         A = sp.diags(dA).tocsr()
@@ -113,10 +113,10 @@ class TestJacobiPrecond:
         assert int(it1) <= int(it0) + 50
 
     def test_diagonal_protocol_all_formats(self):
-        from rbl_tpu.ops.spmm.coo import CooOperator, HybOperator
-        from rbl_tpu.ops.spmm.dia import DiaOperator
-        from rbl_tpu.ops.spmm.ell import SparseEllOperator
-        from rbl_tpu.ops.spmm.pallas_bsr import BlockSparseOperator
+        from rbl.ops.spmm.coo import CooOperator, HybOperator
+        from rbl.ops.spmm.dia import DiaOperator
+        from rbl.ops.spmm.ell import SparseEllOperator
+        from rbl.ops.spmm.pallas_bsr import BlockSparseOperator
 
         rng = np.random.default_rng(4)
         n = 150
@@ -146,7 +146,7 @@ class TestJacobiPrecond:
             np.asarray(rt.DenseOperator(jnp.asarray(Ad)).diagonal()), want)
         dop = rt.DiagonalOperator(jnp.asarray(want))
         np.testing.assert_allclose(np.asarray(dop.diagonal()), want)
-        from rbl_tpu.ops.spmm.operator import AffineOperator
+        from rbl.ops.spmm.operator import AffineOperator
 
         aff = AffineOperator.shift(dop, 2.0, -1.5)
         np.testing.assert_allclose(np.asarray(aff.diagonal()),
@@ -159,7 +159,7 @@ class TestJacobiPrecond:
         ).diagonal() is None
 
     def test_gram_diagonals(self):
-        from rbl_tpu.ops.spmm.operator import (
+        from rbl.ops.spmm.operator import (
             GramOperator,
             SparseGramOperator,
         )
@@ -246,10 +246,10 @@ class TestEigshSigma:
 
 class TestMixedPrecisionInner:
     """f32 MINRES + f64 defect correction (block_minres_refined) must
-    reach full-f64 inner accuracy — the TPU-native f64 strategy."""
+    reach full-f64 inner accuracy (the opt-in mixed inner tier)."""
 
     def test_refined_matches_full_diag(self):
-        from rbl_tpu.ops.minres import (
+        from rbl.ops.minres import (
             ShiftInvertOperator,
             block_minres_refined,
         )
@@ -274,8 +274,8 @@ class TestMixedPrecisionInner:
         np.testing.assert_allclose(Ym, Yf, rtol=1e-8, atol=1e-10)
 
     def test_refined_generalized_fem(self):
-        from rbl_tpu.ops.generalized import GeneralizedShiftInvertOperator
-        from rbl_tpu.utils.fem import fem_elasticity_3d
+        from rbl.ops.generalized import GeneralizedShiftInvertOperator
+        from rbl.utils.fem import fem_elasticity_3d
 
         A = fem_elasticity_3d(4)
         n = A.shape[0]

@@ -11,7 +11,7 @@ fast; CI runs them in a dedicated job, like the reference's 3-way split).
 import numpy as np
 import pytest
 
-import rbl_tpu as rt
+import rbl as rt
 
 
 def _residual(diag, eig, k, b):
@@ -133,11 +133,11 @@ def test_mixed_precision_bf16_basis():
 def test_bf16_basis_headline_scheme():
     """The benchmark's flagship mixed-precision scheme (bf16 basis
     storage + f32 recurrence — the reference's FLOAT/DOUBLE split,
-    common.jl:5-6, mapped to TPU dtypes) must match the f32-basis solve
+    common.jl:5-6, mapped to bf16/f32) must match the f32-basis solve
     on a clustered 2D-Laplacian spectrum (the headline problem shape)."""
     import jax.numpy as jnp
 
-    import rbl_tpu as rt
+    import rbl as rt
 
     op = rt.Laplacian2D(nx=64, ny=64, _dtype=jnp.float32)
     ev1 = 2 - 2 * np.cos(np.pi * np.arange(1, 65) / 65)

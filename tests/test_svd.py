@@ -9,7 +9,7 @@ residuals ‖B·v − σ·u‖, and Eckart–Young optimality of the reconstruct
 import numpy as np
 import pytest
 
-import rbl_tpu as rt
+import rbl as rt
 
 
 def _make_B(m, n, seed=0, decay=None):
@@ -88,7 +88,7 @@ def test_svd_sharded_mesh_matches_single_device():
     """rbl_svd over an 8-device row mesh: B sharded on the Gram dimension,
     Gram contractions psum-reduced by GSPMD; results must match the
     unsharded solve."""
-    from rbl_tpu.parallel.mesh import make_row_mesh
+    from rbl.parallel.mesh import make_row_mesh
 
     B, s_true = _make_B(256, 96, seed=7)
     mesh = make_row_mesh(8)
@@ -100,7 +100,7 @@ def test_rect_coo_apply_and_transpose():
     """RectCooOperator: rectangular SpMM matches dense, both orientations."""
     import scipy.sparse as sp
 
-    from rbl_tpu.ops.spmm.coo import RectCooOperator
+    from rbl.ops.spmm.coo import RectCooOperator
 
     rng = np.random.default_rng(11)
     B = sp.random(73, 41, density=0.15, random_state=rng).tocsr()
@@ -117,7 +117,7 @@ def test_svd_sparse_stays_sparse_and_recovers_factors():
     both the tall (n-side Gram) and wide (m-side Gram) orientations."""
     import scipy.sparse as sp
 
-    import rbl_tpu as rt
+    import rbl as rt
 
     rng = np.random.default_rng(12)
     for shape in [(300, 120), (120, 300)]:

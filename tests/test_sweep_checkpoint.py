@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-import rbl_tpu as rt
-from rbl_tpu.config import RBLConfig
+import rbl as rt
+from rbl.config import RBLConfig
 
 
 def _slow_diag(n):
@@ -127,8 +127,8 @@ class TestSweepCheckpoint:
 
         if len(jax.devices()) < 8:
             pytest.skip("needs 8 virtual devices")
-        from rbl_tpu.parallel.dist_spmm import ShardedCooSpMM
-        from rbl_tpu.parallel.mesh import make_row_mesh
+        from rbl.parallel.dist_spmm import ShardedCooSpMM
+        from rbl.parallel.mesh import make_row_mesh
 
         mesh = make_row_mesh(8)
         n, k = 320, 5
@@ -151,7 +151,7 @@ class TestSweepCheckpoint:
         # rbl_restarted's fault tolerance is the RestartState boundary
         # file; the main solver's mid-sweep knob must not leak into its
         # inner sweeps (they would share one file across restarts)
-        from rbl_tpu.solver.restarted import rbl_restarted
+        from rbl.solver.restarted import rbl_restarted
 
         ck = str(tmp_path / "never_written.npz")
         A = _slow_diag(200)
@@ -164,7 +164,7 @@ class TestSweepCheckpoint:
         assert not os.path.exists(ck)
 
     def test_checkpoint_roundtrip_state(self, tmp_path):
-        from rbl_tpu.utils.checkpoint import (
+        from rbl.utils.checkpoint import (
             load_sweep_state,
             save_sweep_state,
         )

@@ -7,7 +7,7 @@ requested algebraic end becomes the magnitude end, then maps θ back."""
 import numpy as np
 import pytest
 
-import rbl_tpu as rt
+import rbl as rt
 
 
 def test_la_on_sign_mixed_diagonal():

@@ -10,9 +10,7 @@ A. Device: requires a GPU; prints its kind, count, the JAX version,
    XLA_FLAGS, the compile-cache directory and nvidia-smi's name and power
    limit.
 B. Matrix-free headline (bench.py's configuration): 2D Laplacian 512²,
-   k=50, b=16, bf16 basis, tol 1e-3, Krylov cap 768, cold and warm, under
-   matmul precision "highest" (the default) and "high" (TF32), and the
-   same with an f32 basis.
+   k=50, b=16, bf16 basis, tol 1e-3, Krylov cap 768, cold and warm.
 C. Assembled FEM stiffness (fem_elasticity_3d(42), n=232,974, 18.0 M
    nonzeros) through rt.rbl, k=100, b=8, in natural order (routed to DIA)
    and RCM order (routed to the BSR kernel, and timed against the plain
@@ -22,8 +20,7 @@ D. The BSR SpMM kernel at real widths on the RCM matrix: b in {8, 16},
    version, the ELL/HYB operator the router would otherwise build, and
    cuSPARSE CSR (jax.experimental.sparse) as a yardstick.
 E. f64 at the reference's tolerance: rbl_polished on the f64 Laplacian
-   512², k=50, b=8, to 1e-7, with the host Rayleigh-Ritz branch off (the
-   default) and on.
+   512², k=50, b=8, to 1e-7, cold and warm.
 F. (--multi) ShardedBlockSparseOperator on fem_elasticity_3d(63)
    (n=774,144, k=100, b=8) and ShardedLaplacian2D 2048² (k=50, b=16) over
    a 4-card row mesh, each against the same solve on one card.
@@ -144,48 +141,36 @@ def phase_b(ctx, out: dict) -> None:
     nx = S.lap
     op = rt.Laplacian2D(nx=nx, ny=nx, _dtype=jnp.float32)
     lam = lap2d_spectrum(nx, nx, S.lap_k)
-    # the headline's bf16 basis, and an f32 basis where the products'
-    # own precision is not hidden under bf16 storage roundoff
-    for basis, prec in (("bf16", "highest"), ("bf16", "high"),
-                        ("f32", "highest"), ("f32", "high")):
-        cfg = rt.RBLConfig(
-            block_size=16,
-            basis_dtype={"bf16": jnp.bfloat16, "f32": jnp.float32}[basis],
-            compute_dtype=jnp.float32, qr_method="cholqr2", tol=1e-3,
-            max_kryl_dim=S.lap_cap, eig_poll_cadence=16, seed=0,
-            matmul_precision=prec,
-        )
-        rec = {}
-        for leg in ("cold", "warm"):
-            c0 = cc.snapshot()
-            dt, res = timed(rt.rbl, op, S.lap_k, 16, cfg=cfg)
-            c1 = cc.snapshot()
-            w = np.sort(np.asarray(res.eigenvalues, np.float64))[::-1]
-            rec[leg] = {
-                "seconds": dt, "compiles": c1[0] - c0[0],
-                "compile_seconds": c1[1] - c0[1],
-                "max_rel": float(np.max(np.abs(w - lam) / lam)),
-                "orth": orth_error(res.eigenvectors),
-                "kryl_dim": int(res.kryl_dim),
-                "converged": bool(res.converged),
-            }
-            log(f"[B] lap2d {nx}² k={S.lap_k} b=16 basis={basis} "
-                f"prec={prec} {leg}: "
-                f"{dt:.3f} s, compiles {rec[leg]['compiles']} "
-                f"({rec[leg]['compile_seconds']:.1f} s), "
-                f"max_rel {rec[leg]['max_rel']:.3e}, "
-                f"‖VᵀV−I‖ {rec[leg]['orth']:.3e}, kryl {res.kryl_dim}, "
-                f"converged {res.converged}")
-        out[f"{basis}_{prec}"] = rec
+    cfg = rt.RBLConfig(
+        block_size=16, basis_dtype=jnp.bfloat16, compute_dtype=jnp.float32,
+        qr_method="cholqr2", tol=1e-3, max_kryl_dim=S.lap_cap,
+        eig_poll_cadence=16, seed=0,
+    )
+    for leg in ("cold", "warm"):
+        c0 = cc.snapshot()
+        dt, res = timed(rt.rbl, op, S.lap_k, 16, cfg=cfg)
+        c1 = cc.snapshot()
+        w = np.sort(np.asarray(res.eigenvalues, np.float64))[::-1]
+        rec = out[leg] = {
+            "seconds": dt, "compiles": c1[0] - c0[0],
+            "compile_seconds": c1[1] - c0[1],
+            "max_rel": float(np.max(np.abs(w - lam) / lam)),
+            "orth": orth_error(res.eigenvectors),
+            "kryl_dim": int(res.kryl_dim),
+            "converged": bool(res.converged),
+        }
+        log(f"[B] lap2d {nx}² k={S.lap_k} b=16 bf16 basis {leg}: "
+            f"{dt:.3f} s, compiles {rec['compiles']} "
+            f"({rec['compile_seconds']:.1f} s), "
+            f"max_rel {rec['max_rel']:.3e}, ‖VᵀV−I‖ {rec['orth']:.3e}, "
+            f"kryl {res.kryl_dim}, converged {res.converged}")
+        # Eigenvalues at tol 1e-3 are tol-limited at ~1.4e-2 relative on
+        # this problem: 0.025 leaves ~2x margin and still catches a false
+        # convergence.
+        assert rec["max_rel"] < 0.025, \
+            f"headline eigenvalues off by {rec['max_rel']:.3e}"
     out["peak_bytes_in_use"] = peak_bytes()
     log(f"[B] peak_bytes_in_use {out['peak_bytes_in_use']}")
-    # Eigenvalues at tol 1e-3 are tol-limited at ~1.4e-2 relative on this
-    # problem: 0.025 leaves ~2x margin and still catches a false
-    # convergence.  Only the default precision is held to it; "high" is
-    # measured for the precision finding.
-    worst = max(out["bf16_highest"][leg]["max_rel"]
-                for leg in ("cold", "warm"))
-    assert worst < 0.025, f"headline eigenvalues off by {worst:.3e}"
 
 
 # --------------------------------------------------------------------------
@@ -412,18 +397,12 @@ def phase_d(ctx, out: dict) -> None:
             kw = dict(bm=bm, bk=bk, out_dtype=jnp.float32,
                       interpret=interpret_mode())
             variants = {
-                "kernel_ieee": (functools.partial(
-                    pb.bsr_spmm, precision=jax.lax.Precision.HIGHEST, **kw),
-                    (rp, cl, vals, Xp)),
+                "kernel": (functools.partial(pb.bsr_spmm, **kw),
+                           (rp, cl, vals, Xp)),
                 "plain_xla": (functools.partial(pb.bsr_spmm_xla, bk=bk),
                               (rp, cl, vals, Xpf)),
                 alt_fmt: (apply, (alt, Xf)),
             }
-            if dt == jnp.float32 and not interpret_mode():
-                # TF32x3 exists only on the GPU route
-                variants["kernel_tf32x3"] = (functools.partial(
-                    pb.bsr_spmm, precision=jax.lax.DotAlgorithmPreset
-                    .TF32_TF32_F32_X3, **kw), (rp, cl, vals, Xp))
             if csr is not None:
                 variants["cusparse_csr"] = (jax.jit(_csr_matmul), (csr, Xf))
             rec = {}
@@ -466,17 +445,11 @@ def phase_e(ctx, out: dict) -> None:
     lam = lap2d_spectrum(nx, nx, S.lap_k)
     cfg = rt.RBLConfig(block_size=8, tol=1e-7, qr_method="cholqr2",
                        eig_poll_cadence=16, seed=0)
-    # host RR off (the default) cold, then on, then off again warm: the
-    # A/B reads the last two, which compile (almost) nothing
-    for leg, host_rr in (("off_cold", "0"), ("on", "1"), ("off_warm", "0")):
-        os.environ["RBL_POLISH_HOST_RR"] = host_rr
-        try:
-            c0 = cc.snapshot()
-            dt, res = timed(rbl_polished, op, S.lap_k, cfg=cfg, b=8,
-                            bounds=(0.0, None))
-            c1 = cc.snapshot()
-        finally:
-            del os.environ["RBL_POLISH_HOST_RR"]
+    for leg in ("cold", "warm"):
+        c0 = cc.snapshot()
+        dt, res = timed(rbl_polished, op, S.lap_k, cfg=cfg, b=8,
+                        bounds=(0.0, None))
+        c1 = cc.snapshot()
         w = np.sort(np.asarray(res.eigenvalues, np.float64))[::-1]
         locked = int(np.sum(np.asarray(res.residual_bounds) < 1e-7))
         rel = float(np.max(np.abs(w - lam) / lam)) if len(w) == len(lam) \
@@ -485,8 +458,8 @@ def phase_e(ctx, out: dict) -> None:
              "compile_seconds": c1[1] - c0[1], "locked": locked,
              "max_rel": rel, "passes": int(res.iterations),
              "orth": orth_error(res.eigenvectors)}
-        out[f"host_rr_{leg}"] = r
-        log(f"[E] f64 lap2d {nx}² k={S.lap_k} tol 1e-7 host_rr {leg}: "
+        out[leg] = r
+        log(f"[E] f64 lap2d {nx}² k={S.lap_k} tol 1e-7 {leg}: "
             f"{dt:.3f} s (compiles {r['compiles']}, "
             f"{r['compile_seconds']:.1f} s), locked {locked}/{S.lap_k}, "
             f"max_rel {rel:.3e}, ‖VᵀV−I‖ {r['orth']:.3e}, "
@@ -494,8 +467,8 @@ def phase_e(ctx, out: dict) -> None:
         # every pair below the reference's 1e-7 residual bound, and
         # eigenvalues within 1e-12 relative (1e-7² ≪ 1e-12 for these
         # separated eigenvalues; f64 roundoff ~1e-15)
-        assert locked == S.lap_k, (host_rr, locked)
-        assert rel < 1e-12, (host_rr, rel)
+        assert locked == S.lap_k, (leg, locked)
+        assert rel < 1e-12, (leg, rel)
 
 
 # --------------------------------------------------------------------------

@@ -384,30 +384,54 @@ class Laplacian3D(LinearOperator):
         return jnp.full((self.n,), 6.0, dtype=self.dtype)
 
 
-def _pick_sparse_format(A, dtype):
-    """Choose the layout for a scipy sparse matrix.
+# Per-apply costs of the sparse layouts on an H100, f32, b=8, from
+# ``benchmarks/spmm_bench.py --router`` (FEM stiffness matrices of
+# n ≈ 230 k in natural, two-field, RCM and shuffled RCM orders; 400 W
+# limit): the BSR kernel costs 2.5–2.7 ps per stored tile entry at fills
+# from 0.019 to 0.187, the ELL scan 53–58 ps per nonzero.  So the kernel
+# beats ELL above a tile fill of ~0.047: measured, it won at fill 0.050
+# (0.913 against 0.973 ms) and lost at 0.032 (1.389 against 1.005 ms).
+# DIA costs 5.4–5.9 ps per stored diagonal entry up to 160 diagonals,
+# then XLA's fused apply falls off a cliff: 0.198 ms at 160 diagonals,
+# 0.528 ms at 176, 2.38 ms at 192, 5.59 ms at 256 (n = 228,888; the
+# sweep in the same script, 700 W limit).
+_KERNEL_S_PER_TILE_ENTRY = 2.6e-12
+_ELL_S_PER_NNZ = 55e-12
+_DIA_S_PER_ENTRY = 5.8e-12
+_DIA_MAX_DIAGONALS = 160
 
-    Banded matrices (at most 256 populated diagonals, DiaOperator's
-    guard) go to DIA: static shifted adds, no gathers.  Past that, f32 and
-    bf16 matrices whose tiles are at least 2% full go to the BSR kernel
-    where it runs compiled (the GPU); skewed row lengths go to HYB and
-    everything else to the ELL scan.  Returns (format, (bm, bk) plan)."""
+
+def _pick_sparse_format(A, dtype):
+    """Choose the layout for a scipy sparse matrix: the cheapest by the
+    measured per-entry costs above.
+
+    DIA (static shifted adds, no gathers) is a candidate up to
+    _DIA_MAX_DIAGONALS populated diagonals; the BSR kernel for f32 and
+    bf16 operators where it runs compiled (the GPU); the gather formats
+    always — HYB under skewed row lengths, else the ELL scan.  Returns
+    (format, (bm, bk) plan or None)."""
     import numpy as _np
 
     from ...backend import interpret_mode
     from .dia import count_diagonals
 
-    if count_diagonals(A) <= 256:
-        return "dia", None
+    costs = {"gather": _ELL_S_PER_NNZ * A.nnz}
+    n_diag = count_diagonals(A)
+    if n_diag <= _DIA_MAX_DIAGONALS:
+        costs["dia"] = _DIA_S_PER_ENTRY * n_diag * A.shape[0]
     # the operator is built at dtype or, when unspecified, A's own dtype —
     # an f32/bf16 matrix with dtype=None must still reach the BSR branch
     itemsize = jnp.dtype(dtype if dtype is not None else A.dtype).itemsize
+    plan = None
     if itemsize <= 4 and not interpret_mode():
         from .pallas_bsr import pick_tile_plan, tile_fill
 
         plan = pick_tile_plan(A)
-        if tile_fill(A, *plan) >= 0.02:
-            return "bsr", plan
+        costs["bsr"] = (_KERNEL_S_PER_TILE_ENTRY * A.nnz
+                        / max(tile_fill(A, *plan), 1e-12))
+    fmt = min(costs, key=costs.get)
+    if fmt != "gather":
+        return fmt, plan if fmt == "bsr" else None
     # ELL pads every row to the max row nnz: under row-length skew
     # (power-law graphs, a few dense rows) that multiplies memory and scan
     # length by the skew factor — route to HYB (capped ELL + COO overflow)

@@ -127,40 +127,6 @@ def _filter_qr(op, X, frozen, a, b, degree, qr_method, fdt=None):
     return Q[:, inv]
 
 
-@jax.jit
-def _apply_only(op, X):
-    return op.apply(X)
-
-
-@jax.jit
-def _rotate_dev(X, Y):
-    # short-contraction GEMM at full precision
-    with jax.default_matmul_precision("highest"):
-        return jnp.dot(X, Y, preferred_element_type=X.dtype)
-
-
-@partial(jax.jit, static_argnames=("degree", "fdt"))
-def _filter_only(op, X, a, b, degree, fdt=None):
-    """The filter pass WITHOUT the QR — host-RR mode (accelerator f64)
-    does its orthogonalization on the host."""
-    from ..ops.chebyshev import ChebyshevProductFilter
-
-    xdt = X.dtype
-    if fdt is not None and jnp.dtype(fdt) != xdt:
-        from ..ops.spmm.operator import cast_operator
-
-        fop = ChebyshevProductFilter(
-            base=cast_operator(op, fdt), a=a.astype(fdt), b=b.astype(fdt),
-            degree=degree,
-        )
-        Y = fop.apply(X.astype(fdt)).astype(xdt)
-    else:
-        fop = ChebyshevProductFilter(base=op, a=a, b=b, degree=degree)
-        Y = fop.apply(X)
-    nrm = jnp.sqrt(jnp.sum(Y * Y, axis=0))
-    return Y / jnp.where(nrm > 0, nrm, 1.0)
-
-
 def _auto_degree(x: float, gain: float, cap: int) -> int:
     """Smallest d with cosh(d·acosh(x)) ≥ gain (filter gain at relative
     coordinate x > 1), clamped to [8, cap]."""
@@ -300,29 +266,11 @@ def _chebyshev_refine_impl(A, warm_V, k, cfg, which, bounds, degree,
         # sinking the Cholesky (same rationale as _filter_qr)
         nrm = jnp.sqrt(jnp.sum(W * W, axis=0))
         W = W / jnp.where(nrm > 0, nrm, 1.0)
-        # HOST-RR MODE (opt-in, RBL_POLISH_HOST_RR=1): the Gram, the
-        # Rayleigh–Ritz rotation bookkeeping and the QR run in host numpy
-        # on fetched blocks; the device keeps the operator applies, the
-        # filter chain and the rotation GEMMs.  Traffic per pass = fetch
-        # A·X + fetch filtered block + push Q.  Off by default: with
-        # native f64 the device path is as exact and faster — f64
-        # Laplacian 512², k=50, to 1e-7 on an H100 (400 W limit): 50/50
-        # locked and eigenvalues within 2.3e-15 either way, 1.68 s warm
-        # on the device against 19.1 s with host RR.
-        import os as _os
-
-        host_rr = _os.environ.get("RBL_POLISH_HOST_RR") == "1"
+        # the Gram, the Rayleigh–Ritz rotation and the QR all stay on the
+        # device; only the m×m Gram comes to the host for its eigh
         qr_method = ("cholqr2" if cdt.itemsize >= 8
                      else cfg.resolved_qr_method())
-        Xh = None
-        if host_rr:
-            Wh = np.asarray(W, dtype=np.float64)
-            Xh, _ = np.linalg.qr(Wh)
-            X = jnp.asarray(Xh, cdt)
-            if sharding is not None:
-                X = jax.device_put(X, sharding)
-        else:
-            X, _ = block_qr(W, method=qr_method)
+        X, _ = block_qr(W, method=qr_method)
 
         hi = hi_u
         if hi is None:
@@ -343,12 +291,8 @@ def _chebyshev_refine_impl(A, warm_V, k, cfg, which, bounds, degree,
         converged = False
         npass = 0
         for p in range(max_passes):
-            if host_rr:
-                AXh = np.asarray(_apply_only(op, X), dtype=np.float64)
-                Hh = Xh.T @ AXh
-            else:
-                H, AX = _rr_gram(op, X)
-                Hh = np.asarray(H, dtype=np.float64)
+            H, AX = _rr_gram(op, X)
+            Hh = np.asarray(H, dtype=np.float64)
             if not np.all(np.isfinite(Hh)):
                 # raise the RETRYABLE class (scipy's ValueError would
                 # bypass every health-wait retry layer)
@@ -364,18 +308,11 @@ def _chebyshev_refine_impl(A, warm_V, k, cfg, which, bounds, degree,
                 else np.argsort(-th_a, kind="stable")
             )
             th, Yh = th_a[order], Y_a[:, order]
-            if host_rr:
-                Xh = Xh @ Yh
-                AXrh = AXh @ Yh
-                Rh = AXrh - Xh * th[None, :]
-                res = np.sqrt(np.sum(Rh * Rh, axis=0))
-                X = _rotate_dev(X, jnp.asarray(Yh, cdt))
-            else:
-                X, res_j = _rr_rotate(
-                    X, AX, jnp.asarray(Yh, dtype=cdt),
-                    jnp.asarray(th, dtype=cdt),
-                )
-                res = np.asarray(res_j, dtype=np.float64)
+            X, res_j = _rr_rotate(
+                X, AX, jnp.asarray(Yh, dtype=cdt),
+                jnp.asarray(th, dtype=cdt),
+            )
+            res = np.asarray(res_j, dtype=np.float64)
             npass = p + 1
             top = float(np.max(res[:k]))
             if top < cfg.tol:
@@ -504,39 +441,16 @@ def _chebyshev_refine_impl(A, warm_V, k, cfg, which, bounds, degree,
                     flush=True,
                 )
                 _t_last = _t_now
-            if host_rr:
-                Yf = np.array(  # np.array: writable copy (np.asarray of a
-                    _filter_only(  # jax array is a read-only view)
-                        op, X, jnp.asarray(a_, cdt), jnp.asarray(b_, cdt),
-                        deg, fdt=fdt,
-                    ),
-                    dtype=np.float64,
-                )
-                # frozen columns pass through unfiltered (host copy is
-                # the rotated block) and lead the QR via the same
-                # stable partition as _filter_qr — true passthrough +
-                # deflation for interleaved lock patterns (ADVICE r4)
-                Yf[:, frozen] = Xh[:, frozen]
-                order = np.argsort(~frozen, kind="stable")
-                inv = np.argsort(order)
-                Qp, _ = np.linalg.qr(Yf[:, order])
-                Xh = Qp[:, inv]
-                X = jnp.asarray(Xh, cdt)
-                if sharding is not None:
-                    X = jax.device_put(X, sharding)
-            else:
-                X = _filter_qr(
-                    op, X, jnp.asarray(frozen),
-                    jnp.asarray(a_, cdt), jnp.asarray(b_, cdt),
-                    deg, qr_method, fdt=fdt,
-                )
+            X = _filter_qr(
+                op, X, jnp.asarray(frozen),
+                jnp.asarray(a_, cdt), jnp.asarray(b_, cdt),
+                deg, qr_method, fdt=fdt,
+            )
             if checkpoint_path is not None:
                 from ..utils.checkpoint import save_polish_state
 
-                save_polish_state(
-                    checkpoint_path, Xh if host_rr else np.asarray(X),
-                    th, res, p + 1,
-                )
+                save_polish_state(checkpoint_path, np.asarray(X), th, res,
+                                  p + 1)
 
         lam = th[:k].astype(np.float64)
         if which == "SA":

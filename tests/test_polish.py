@@ -203,29 +203,6 @@ def test_warm_block_pads_missing_columns():
     assert np.linalg.norm(blk[:, 1]) > 0 and np.linalg.norm(blk[:, 2]) > 0
 
 
-def test_host_rr_mode_matches_device_path(monkeypatch):
-    """The opt-in host-RR branch (host Gram/QR, device
-    apply/filter/rotate) must produce the same answer as the device
-    path.  Forced on via RBL_POLISH_HOST_RR."""
-    n, k = 900, 8
-    rng = np.random.default_rng(2)
-    d = np.zeros(n)
-    d[:20] = 8.0 * (1.0 - 3e-5 * np.arange(20))
-    d[20:] = np.linspace(7.5, 0.01, n - 20)
-    op = rt.DiagonalOperator(jnp.asarray(d))
-    cfg = RBLConfig(block_size=4, tol=1e-8, seed=0)
-
-    monkeypatch.setenv("RBL_POLISH_HOST_RR", "1")
-    res_h = rbl_polished(op, k, cfg=cfg, b=4)
-    monkeypatch.setenv("RBL_POLISH_HOST_RR", "0")
-    res_d = rbl_polished(op, k, cfg=cfg, b=4)
-    assert res_h.converged and res_d.converged
-    np.testing.assert_allclose(
-        np.sort(res_h.eigenvalues), np.sort(res_d.eigenvalues), rtol=1e-12
-    )
-    assert np.max(res_h.residual_bounds) < 1e-8
-
-
 def test_chebyshev_refine_pass_checkpoint_and_resume(tmp_path):
     """checkpoint_path on the WARM polish path (ADVICE r4): each filter
     pass writes an atomic (X, theta, res, npass) checkpoint; resuming

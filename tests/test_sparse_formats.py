@@ -483,27 +483,43 @@ def test_bsr_dtype_rule_f64_takes_plain_path(monkeypatch):
     assert calls == [1]
 
 
-@pytest.mark.parametrize("case", ["banded", "scattered_f32", "scattered_f64"])
+@pytest.mark.parametrize("case", ["banded", "scattered_f32", "scattered_f64",
+                                  "low_fill_f32", "wide_band_f32",
+                                  "wide_band_cpu"])
 def test_router_choices_on_gpu_backend(monkeypatch, case):
-    """On a GPU backend: ≤ 256 diagonals → DIA; scattered f32 → the BSR
-    kernel (built compiled, not interpreted); scattered f64 → ELL/HYB."""
+    """By the measured per-entry costs: a few full diagonals → DIA;
+    scattered f32 with tiles ~9% full → the BSR kernel (built compiled,
+    not interpreted); f64 → ELL; f32 tiles under the ~0.047 crossover
+    fill → ELL; full bands past the DIA limit → the kernel on the GPU,
+    ELL where the kernel only interprets (the CPU)."""
     import jax
 
     from rbl.ops.spmm.ell import SparseEllOperator
+    from rbl.ops.spmm.operator import _DIA_MAX_DIAGONALS
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
-    if case == "banded":
-        op = rt.as_operator(_banded(400, [0, 1, -1, 90, -90]))
-        assert isinstance(op, DiaOperator)
-    elif case == "scattered_f32":
-        A = _random_sym(600, 0.05, seed=13)
-        op = rt.as_operator(A, dtype=jnp.float32)
-        assert isinstance(op, BlockSparseOperator)
+    wide = list(range(-(_DIA_MAX_DIAGONALS // 2 + 4),
+                      _DIA_MAX_DIAGONALS // 2 + 5))
+    backend = "cpu" if case.endswith("_cpu") else "gpu"
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    A, dtype, expect = {
+        "banded": (_banded(400, [0, 1, -1, 90, -90]), None, DiaOperator),
+        "scattered_f32": (_random_sym(600, 0.05, seed=13), jnp.float32,
+                          BlockSparseOperator),
+        "scattered_f64": (_random_sym(600, 0.05, seed=13), None,
+                          SparseEllOperator),
+        "low_fill_f32": (_random_sym(600, 0.01, seed=13), jnp.float32,
+                         SparseEllOperator),
+        "wide_band_f32": (_banded(600, wide), jnp.float32,
+                          BlockSparseOperator),
+        "wide_band_cpu": (_banded(600, wide), jnp.float32,
+                          SparseEllOperator),
+    }[case]
+    assert len(wide) > _DIA_MAX_DIAGONALS
+    op = rt.as_operator(A, dtype=dtype)
+    assert type(op) is expect, type(op).__name__
+    if expect is BlockSparseOperator:
         assert op.interpret is False
         assert (op.bm, op.bk) == pb.pick_tile_plan(A)
-    else:
-        op = rt.as_operator(_random_sym(600, 0.05, seed=13))
-        assert isinstance(op, SparseEllOperator)
 
 
 @pytest.mark.gpu
